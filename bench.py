@@ -1,11 +1,11 @@
-"""Benchmark: VSS-v0 env-steps/s at 8192 parallel envs (BASELINE.json metric).
+"""Benchmark: VSS-v0 env-steps/s at 8192 parallel envs on one GPU.
 
-Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline"}.
-vs_baseline is value / 10M — the north-star throughput for one host
-(BASELINE.md; the reference publishes no numbers of its own: it steps one
-C++ sim per env from Python and cannot batch at all).
+Prints ONE JSON line: {"metric", "value", "unit", "device"}, with the device
+as JAX reports it.  Refuses to run without a GPU: a CPU number is not the
+device metric.
 
-Env overrides: RSOCCER_BENCH_ENVS, RSOCCER_BENCH_STEPS, RSOCCER_BENCH_ENV_ID.
+Env overrides: RSOCCER_BENCH_ENVS, RSOCCER_BENCH_STEPS, RSOCCER_BENCH_ITERS,
+RSOCCER_BENCH_UNROLL, RSOCCER_BENCH_ENV_ID, RSOCCER_BENCH_RNG (key impl).
 """
 
 import json
@@ -15,95 +15,87 @@ import time
 
 import jax
 
-# persistent compilation cache: repeated bench runs (and driver re-runs)
-# skip the multi-minute remote compile
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache")
-jax.config.update("jax_compilation_cache_dir", os.environ["JAX_COMPILATION_CACHE_DIR"])
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from rsoccer_tpu.utils.cache import enable_persistent_cache
+
+# env-noise key implementation: the faster of the two on the H100 for the
+# VSS-v0 engine rollout at 8192 envs (PERF.md, "threefry vs rbg")
+RNG_IMPL = "threefry2x32"
+# scan unroll of the engine rollout.  On the H100 unroll 4 matches unroll
+# 16 on VSS-v0 (49.1M vs 49.3M env-steps/s at 8192 envs) and compiles in
+# 28 s instead of 153 s (SSLStaticDefenders: 45 s instead of 193 s, for
+# 11% less rate); unroll 1 is 17% slower on VSS-v0 (PERF.md).
+UNROLL = 4
 
 
-def main():
-    n_envs = int(os.environ.get("RSOCCER_BENCH_ENVS", 8192))
-    n_steps = int(os.environ.get("RSOCCER_BENCH_STEPS", 100))
-    n_iters = int(os.environ.get("RSOCCER_BENCH_ITERS", 5))
-    # unroll 16 amortises the scan-body overhead (policy draw, metric
-    # reductions, carry updates) to ~zero: measured 234M -> 254M steps/s
-    # at the 8192 metric point vs unroll 4; >=32 gains <2% more but
-    # multiplies the (remote) compile time
-    unroll = int(os.environ.get("RSOCCER_BENCH_UNROLL", 16))
-    env_id = os.environ.get("RSOCCER_BENCH_ENV_ID", "VSS-v0")
-
+def build(env_id: str, n_envs: int, n_steps: int, unroll: int = UNROLL):
+    """(BatchedEnv, jitted donated rollout of ``n_steps`` random-policy
+    steps) — the program this benchmark times."""
     import rsoccer_tpu
     from rsoccer_tpu.batch import rollout as R
     from rsoccer_tpu.batch.vecenv import BatchedEnv
 
-    # RSOCCER_BENCH_PALLAS: 0 = plain XLA path, 1 = pallas physics kernel,
-    # full = full-step pallas kernel (state resident in kernel layout),
-    # full-krng = full-step kernel with in-kernel hardware RNG.
-    # Default on TPU: full-krng (the fastest path: 151.9M vs 74.6M XLA at
-    # the 8192 metric point, monotone to 177.7M at 131072).  On CPU the
-    # kernels only run in interpret mode, so default to the XLA path.
-    default_mode = "full-krng" if jax.default_backend() == "tpu" else "0"
-    pallas_mode = os.environ.get("RSOCCER_BENCH_PALLAS", default_mode)
-    env = rsoccer_tpu.make(env_id)
-    benv = BatchedEnv(
-        env,
-        n_envs,
-        pallas_physics=pallas_mode == "1",
-        pallas_full=pallas_mode.startswith("full"),
-        pallas_rng="kernel" if pallas_mode == "full-krng" else "input",
-    )
-    # modest scan length + repeated calls: same measured steady-state
-    # throughput as one long scan, but a far smaller program to compile
-    # (matters on remote-compile TPU setups)
+    benv = BatchedEnv(rsoccer_tpu.make(env_id), n_envs)
     roll = jax.jit(
         R.make_rollout_fn(benv, n_steps, unroll=unroll), donate_argnums=0
     )
+    return benv, roll
 
-    # hardware RNG (rbg) by default: env noise is drawn batch-level, so the
-    # key impl only changes which generator fills the noise blocks
-    rng_impl = os.environ.get("RSOCCER_BENCH_RNG", "rbg")
-    carry = R.init_carry(benv, jax.random.key(0, impl=rng_impl))
-    # warmup / compile.  Synchronise via an actual scalar fetch, not
-    # block_until_ready: some PJRT transports (e.g. tunneled remote TPUs)
-    # report readiness before execution completes, and only a
-    # device-to-host transfer truly waits.
-    carry, ms = roll(carry)
-    float(ms.total_reward)
-    # second warmup: the first call's outputs can differ in weak-typing from
-    # the initial carry, making the next call a retrace; stabilise so the
-    # timed window can never include a (multi-minute, remote) recompile
-    carry, ms = roll(carry)
-    float(ms.total_reward)
 
-    # adaptive: grow the iteration count until the measured window is long
-    # enough that fixed dispatch/transfer latency is noise (<2% at >=2s)
+def time_rollout(roll, carry, n_iters: int = 5, min_seconds: float = 2.0):
+    """Steady-state seconds per ``roll`` call.  Two warm-up calls (compile,
+    then the call whose input types come from the first call's outputs),
+    then an iteration count grown until the window lasts ``min_seconds``.
+    Returns (seconds per call, carry, last metrics)."""
+    for _ in range(2):
+        carry, ms = roll(carry)
+        jax.block_until_ready(ms)
     while True:
         t0 = time.perf_counter()
         for _ in range(n_iters):
             carry, ms = roll(carry)
-        float(ms.total_reward)
+        jax.block_until_ready((carry, ms))
         dt = time.perf_counter() - t0
-        if dt >= 2.0 or n_iters >= 2000:
-            break
-        n_iters = min(2000, max(n_iters * 2, int(n_iters * 2.5 / max(dt, 1e-3))))
-    n_steps = n_steps * n_iters
+        if dt >= min_seconds or n_iters >= 2000:
+            return dt / n_iters, carry, ms
+        n_iters = min(2000, max(n_iters * 2, int(n_iters * 1.25 * min_seconds / max(dt, 1e-3))))
 
-    steps_per_s = n_envs * n_steps / dt
+
+def main():
+    if jax.default_backend() != "gpu":
+        print("bench.py measures the GPU, and JAX found none", file=sys.stderr)
+        sys.exit(1)
+    enable_persistent_cache()
+    from rsoccer_tpu.batch import rollout as R
+
+    n_envs = int(os.environ.get("RSOCCER_BENCH_ENVS", 8192))
+    n_steps = int(os.environ.get("RSOCCER_BENCH_STEPS", 100))
+    n_iters = int(os.environ.get("RSOCCER_BENCH_ITERS", 5))
+    unroll = int(os.environ.get("RSOCCER_BENCH_UNROLL", UNROLL))
+    env_id = os.environ.get("RSOCCER_BENCH_ENV_ID", "VSS-v0")
+    rng_impl = os.environ.get("RSOCCER_BENCH_RNG", RNG_IMPL)
+
+    benv, roll = build(env_id, n_envs, n_steps, unroll)
+    carry = R.init_carry(benv, jax.random.key(0, impl=rng_impl))
+    sec, carry, ms = time_rollout(roll, carry, n_iters)
+    dev = jax.devices()[0]
     print(
         json.dumps(
             {
-                "metric": f"env-steps/s @ {n_envs} parallel {env_id} envs "
-                f"({jax.devices()[0].platform})",
-                "value": round(steps_per_s),
+                "metric": f"env-steps/s @ {n_envs} parallel {env_id} envs",
+                "value": round(n_envs * n_steps / sec),
                 "unit": "env-steps/s",
-                "vs_baseline": round(steps_per_s / 1e7, 4),
+                "device": {
+                    "platform": dev.platform,
+                    "kind": dev.device_kind,
+                    "count": len(jax.devices()),
+                },
             }
         )
     )
     # context for humans, on stderr so the JSON line stays clean
     print(
-        f"# {n_steps} steps x {n_envs} envs in {dt:.3f}s; last-iter "
+        f"# {n_steps} steps x {n_envs} envs in {sec * 1e3:.3f} ms per call "
+        f"(key impl {rng_impl}, unroll {unroll}); last-call "
         f"episodes={int(ms.episodes)} total_reward={float(ms.total_reward):.1f}",
         file=sys.stderr,
     )

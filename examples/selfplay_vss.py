@@ -93,7 +93,6 @@ def main():
 
     # ONE jitted evaluator taking params/payload as arguments — rebuilding
     # make_eval_fn per swap would recompile the whole eval scan each time
-    # (minutes on a remote-compile TPU)
     @jax.jit
     def run_eval(params, obs_norm, payload, key):
         """Deterministic learner vs the given frozen opponent payload."""

@@ -34,7 +34,7 @@ def main():
     p.add_argument("--save", default="")
     p.add_argument(
         "--rng-impl", default="threefry2x32",
-        help="PRNG impl for env noise ('rbg' = TPU hardware RNG)",
+        help="PRNG impl for env noise ('rbg' = XLA's RngBitGenerator)",
     )
     p.add_argument("--lr", type=float, default=3e-4)
     p.add_argument(
@@ -84,24 +84,14 @@ def main():
         help="comma-separated actor/critic tower widths",
     )
     p.add_argument(
-        "--pallas-full", action="store_true",
-        help="roll out over the fused full-step kernel (whole env step = "
-        "one kernel launch; fastest path, reference-exact resets only)",
-    )
-    p.add_argument(
-        "--pallas-rng", default="input", choices=["input", "kernel"],
-        help="with --pallas-full: 'kernel' draws all env noise with the "
-        "in-kernel TPU hardware PRNG (fastest; TPU only)",
-    )
-    p.add_argument(
         "--num-epochs", type=int, default=4,
         help="PPO epochs over each rollout; 2 halves the update-phase cost "
         "per env-step at a small sample-efficiency cost per update",
     )
     p.add_argument(
         "--num-minibatches", type=int, default=8,
-        help="minibatches per epoch; fewer = larger fused matmuls per "
-        "optimiser step (better MXU utilisation at the same sample count)",
+        help="minibatches per epoch; fewer = larger matmuls per "
+        "optimiser step at the same sample count",
     )
     p.add_argument(
         "--rollout-unroll", type=int, default=1,
@@ -110,8 +100,7 @@ def main():
     p.add_argument(
         "--chain", type=int, default=1,
         help="fuse K train steps into one jitted lax.scan launch: the host "
-        "(and, on tunneled deployments, the per-launch RPC round-trip) "
-        "leaves the loop entirely — sustained rate == device rate",
+        "and the per-launch overhead leave the loop entirely",
     )
     p.add_argument(
         "--log-every", type=int, default=1,
@@ -124,10 +113,7 @@ def main():
     import json
 
     env = rsoccer_tpu.make(args.env_id, **json.loads(args.env_kwargs))
-    benv = BatchedEnv(
-        env, args.envs,
-        pallas_full=args.pallas_full, pallas_rng=args.pallas_rng,
-    )
+    benv = BatchedEnv(env, args.envs)
     cfg = PPOConfig(
         lr=args.lr,
         anneal_updates=(

@@ -1,11 +1,11 @@
-"""rsoccer_tpu — TPU-native robot-soccer environment engine.
+"""rsoccer_tpu — batched robot-soccer environment engine in JAX.
 
 A from-scratch JAX/XLA re-design of the capabilities of robocin/rSoccer
 (Gymnasium environments for IEEE VSS and RoboCup SSL robot soccer): the C++
 rSim physics backend becomes a pure-functional, branch-free world step that
 vmaps over thousands of env instances, task logic (observations, rewards,
 terminations, resets) is expressed as jittable functions, rollouts run as a
-single ``lax.scan`` program on-device, and the env batch shards over TPU
+single ``lax.scan`` program on-device, and the env batch shards over device
 meshes for multi-host scaling.
 """
 

@@ -7,8 +7,8 @@ iterated T times with zero host synchronisation and donated state buffers.
 
 RNG: the carry holds one env key and one policy key; each step splits them
 once (scalar splits — cheap) and the batched env draws its whole noise block
-from the step key (see ``rsoccer_tpu.batch.vecenv``).  Pass rbg-impl keys for
-hardware-RNG throughput on TPU.
+from the step key (see ``rsoccer_tpu.batch.vecenv``); the key's
+implementation (threefry or rbg) picks the generator.
 """
 
 from __future__ import annotations

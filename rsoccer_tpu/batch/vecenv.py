@@ -2,19 +2,18 @@
 
 The reference has no batching of any kind — one env instance drives one C++
 simulator synchronously (Simulators/rsim.py:25-33, vss_gym_base.py:72-90).
-Here the batch is the TPU parallel axis: single-env pure functions are
-vmapped over a *trailing* batch dimension ("lane layout"), which puts the env
-index in the TPU's 128-wide lane dimension so all per-entity arrays tile
-densely — e.g. robot state becomes ``(n_robots, B)`` instead of
-``(B, n_robots)``, avoiding a ~20x lane-padding blowup for small n_robots.
+Here single-env pure functions are vmapped over a *trailing* batch
+dimension ("lane layout"): robot state becomes ``(n_robots, B)`` instead of
+``(B, n_robots)``, so the env index is the contiguous, fastest-varying axis
+of every per-entity array and elementwise step code reads whole rows.
 
 Randomness: envs are deterministic functions of pre-drawn noise (see
 ``rsoccer_tpu.envs.base``).  The batched layer draws each step's entire
 noise block — all envs, all uses — with ONE fused generator call per kind
 from a single per-step key.  This replaces thousands of per-env threefry
 splits with two wide generator calls, and the key's implementation flows
-through: pass ``jax.random.PRNGKey(seed, impl="rbg")`` to use the TPU's
-hardware RNG for the whole rollout.
+through: a ``jax.random.key(seed, impl="rbg")`` key fills the blocks with
+XLA's ``RngBitGenerator`` instead of threefry.
 
 ``BatchedEnv.step`` therefore takes/returns:
     state  — pytree, every leaf with a trailing batch axis
@@ -34,61 +33,15 @@ from rsoccer_tpu.envs.base import Env, draw_noise, strongify
 
 
 class BatchedEnv:
-    """vmap wrapper around a single-env :class:`Env`.
+    """vmap wrapper around a single-env :class:`Env`."""
 
-    ``pallas_physics=True`` (VSS only) routes the physics through the fused
-    Pallas kernel (ops/pallas_vss.py): task logic stays vmapped, the
-    dynamics run as one kernel launch per batch tile.
-
-    ``pallas_full=True`` (all five reference tasks) goes further: the
-    ENTIRE step — noise, command conversion, physics, reward/termination,
-    spawn reset and observation build — runs as ONE kernel launch per batch
-    tile (ops/pallas_vss_full.py, ops/pallas_ssl_full.py), and the env
-    state flows through the rollout in kernel layout (a single ``(S, B)``
-    tensor), so there is no per-step pack/unpack at all.  The state
-    returned by :meth:`reset`/:meth:`step` is that packed tensor; use
-    :meth:`unpack_state` for a structured view.  ``pallas_rng="kernel"``
-    additionally draws all noise inside the kernel with the TPU hardware
-    PRNG (TPU only; the fastest path).
-    """
-
-    def __init__(
-        self,
-        env: Env,
-        n_envs: int,
-        pallas_physics: bool = False,
-        pallas_full: bool = False,
-        pallas_tile: int = 2048,
-        pallas_rng: str = "input",
-    ):
+    def __init__(self, env: Env, n_envs: int):
         self.env = env
         self.n_envs = n_envs
         self.obs_size = env.obs_size
         self.action_size = env.action_size
-        # constructor mode, so wrappers (e.g. the shard_map rollout's
-        # per-device env) can rebuild at a different batch size
-        self.mode = dict(
-            pallas_physics=pallas_physics,
-            pallas_full=pallas_full,
-            pallas_tile=pallas_tile,
-            pallas_rng=pallas_rng,
-        )
         self._t_spec = env.transition_noise_spec()
         self._r_spec = env.reset_noise_spec()
-        if pallas_full and pallas_physics:
-            raise ValueError("pallas_full subsumes pallas_physics; pick one")
-        if pallas_full and (
-            getattr(env, "curriculum", False)
-            or getattr(env, "terminal_penalty", 0.0)
-            or getattr(env, "catch_scale", 1.0) != 1.0
-        ):
-            raise ValueError(
-                "the full-step kernels implement the reference's exact reset "
-                "and reward; training-time extensions (curriculum, "
-                "terminal_penalty, catch_scale) run on the XLA path "
-                "(pallas_full=False)"
-            )
-
         self._reset_v = jax.vmap(
             lambda noise: _reset_obs(env, noise), in_axes=-1, out_axes=-1
         )
@@ -99,300 +52,33 @@ class BatchedEnv:
         self._step_env_v = jax.vmap(
             lambda s, a, n: _step_env(env, s, a, n), in_axes=-1, out_axes=-1
         )
-        self._pallas = None
-        self._full = None
-        self._full_final = None  # emit_final_obs kernel variant
-        # largest tile that divides the batch and is <= the requested tile
-        # (math.gcd), so e.g. n_envs=3072 works with the 2048 default
-        import math
-
-        tile = math.gcd(n_envs, pallas_tile)
-        if pallas_physics:
-            self._pallas = _build_pallas_vss(env, n_envs, tile)
-            self._pre_v = jax.vmap(env.pre_physics, in_axes=-1, out_axes=-1)
-            self._post_v = jax.vmap(env.post_physics, in_axes=-1, out_axes=-1)
-            self._reset_state_v = jax.vmap(
-                lambda noise: strongify(env.reset_state(noise)),
-                in_axes=-1, out_axes=-1,
-            )
-            self._observe_v = jax.vmap(env.observe, in_axes=-1, out_axes=-1)
-        if pallas_full:
-            self._full_rng = pallas_rng
-            self._init_full(env, n_envs, tile, pallas_rng)
-
-    def _init_full(self, env, n_envs, tile, rng):
-        """Dispatch the full-step kernel builder by exact env type (task
-        logic is baked into each kernel; subclasses with overridden
-        behavior must not silently inherit the base kernel)."""
-        import jax.numpy as jnp
-
-        from rsoccer_tpu.envs.ssl_static_defenders import SSLStaticDefendersEnv
-        from rsoccer_tpu.envs.vss import VSSEnv
-
-        n = env.n_robots
-        b = n_envs
-        if type(env) is VSSEnv:
-            from rsoccer_tpu.envs.vss import _SHAPING_KEYS
-            from rsoccer_tpu.ops.pallas_vss_full import (
-                make_pallas_vss_full_step,
-                pack_vss_state,
-                unpack_vss_state,
-            )
-
-            self._full_make = lambda emit: make_pallas_vss_full_step(
-                env, b, tile=tile, rng=rng, emit_final_obs=emit
-            )
-            self._full = self._full_make(False)
-            self._full_final = self._full_make(True)
-            self._pack = pack_vss_state
-            self._unpack = lambda s: unpack_vss_state(
-                s, n, env.field.rbt_wheel_radius
-            )
-            self._info_keys = _SHAPING_KEYS
-
-            def pack_noise(t_noise, r_noise):
-                ou = t_noise["ou"]  # (N, 2, B) -> wheel-major (2N, B)
-                return (
-                    jnp.concatenate([ou[:, 0, :], ou[:, 1, :]], axis=0),
-                    r_noise["spawn"].reshape(-1, b),
-                    r_noise["theta"].reshape(n, b),
-                )
-
-            self._pack_noise = pack_noise
-        elif type(env) is SSLStaticDefendersEnv:
-            from rsoccer_tpu.envs.ssl_static_defenders import (
-                _SHAPING_KEYS as SD_KEYS,
-            )
-            from rsoccer_tpu.ops import pallas_ssl_full as psf
-
-            self._full_make = lambda emit: psf.make_pallas_sd_full_step(
-                env, b, tile=tile, rng=rng, emit_final_obs=emit
-            )
-            self._full = self._full_make(False)
-            self._full_final = self._full_make(True)
-            self._pack = psf.pack_sd_state
-            self._unpack = lambda s: psf.unpack_sd_state(s, env)
-            self._info_keys = SD_KEYS
-            self._pack_noise = lambda t, r: (
-                r["ball"].reshape(-1, b),
-                r["spawn"].reshape(-1, b),
-                r["theta"].reshape(-1, b),
-            )
-        elif self._dispatch_ssl_simple(env, n_envs, tile, rng):
-            pass
-        else:
-            raise NotImplementedError(
-                f"pallas_full not implemented for {type(env).__name__}"
-            )
-
-    def _dispatch_ssl_simple(self, env, n_envs, tile, rng) -> bool:
-        """CP / Dribbling / PE full-step kernels."""
-        from rsoccer_tpu.envs.ssl_contested_possession import (
-            SSLContestedPossessionEnv,
-            _SHAPING_KEYS as CP_KEYS,
-        )
-        from rsoccer_tpu.envs.ssl_dribbling import SSLDribblingEnv
-        from rsoccer_tpu.envs.ssl_pass_endurance import (
-            SSLPassEnduranceEnv,
-            _SHAPING_KEYS as PE_KEYS,
-        )
-        from rsoccer_tpu.ops import pallas_ssl_full as psf
-
-        b = n_envs
-        if type(env) is SSLContestedPossessionEnv:
-            self._full_make = lambda emit: psf.make_pallas_cp_full_step(
-                env, b, tile=tile, rng=rng, emit_final_obs=emit
-            )
-            self._full = self._full_make(False)
-            self._full_final = self._full_make(True)
-            self._pack = psf.pack_cp_state
-            self._unpack = lambda s: psf.unpack_cp_state(s, env)
-            self._info_keys = CP_KEYS
-            self._pack_noise = lambda t, r: (r["enemy"].reshape(-1, b),)
-            return True
-        if type(env) is SSLDribblingEnv:
-            self._full_make = lambda emit: psf.make_pallas_dr_full_step(
-                env, b, tile=tile, rng=rng, emit_final_obs=emit
-            )
-            self._full = self._full_make(False)
-            self._full_final = self._full_make(True)
-            self._pack = psf.pack_dr_state
-            self._unpack = lambda s: psf.unpack_dr_state(s, env)
-            self._info_keys = ()
-            self._pack_noise = lambda t, r: ()
-            return True
-        if type(env) is SSLPassEnduranceEnv:
-            self._full_make = lambda emit: psf.make_pallas_pe_full_step(
-                env, b, tile=tile, rng=rng, emit_final_obs=emit
-            )
-            self._full = self._full_make(False)
-            self._full_final = self._full_make(True)
-            self._pack = psf.pack_pe_state
-            self._unpack = lambda s: psf.unpack_pe_state(s, env)
-            self._info_keys = PE_KEYS
-            self._pack_noise = lambda t, r: (
-                r["ball"].reshape(-1, b),
-                r["recv_x"].reshape(-1, b),
-            )
-            return True
-        return False
-
-    def unpack_state(self, state):
-        """Structured state view of a ``pallas_full`` packed state."""
-        return self._unpack(state)
 
     def reset(self, key):
         """One key for the whole batch."""
         noise = draw_noise(key, self._r_spec, batch=self.n_envs)
-        state, obs = self._reset_v(noise)
-        if self._full is not None:
-            return self._pack(state), obs
-        return state, obs
+        return self._reset_v(noise)
+
+    def _draw_step_noise(self, key):
+        kt, kr = jax.random.split(key)
+        return (
+            draw_noise(kt, self._t_spec, batch=self.n_envs),
+            draw_noise(kr, self._r_spec, batch=self.n_envs),
+        )
 
     def step(self, state, actions, key):
         """Auto-resetting step. actions (A, B), one key."""
-        if self._full is not None:
-            return self._full_step(state, actions, key)
-        kt, kr = jax.random.split(key)
-        t_noise = draw_noise(kt, self._t_spec, batch=self.n_envs)
-        r_noise = draw_noise(kr, self._r_spec, batch=self.n_envs)
-        if self._pallas is not None:
-            return self._pallas_step(state, actions, t_noise, r_noise)
-        return self._step_v(state, actions, t_noise, r_noise)
-
-    def _full_invoke(self, kernel, state, actions, key):
-        """Run a fused kernel variant with the step's noise/seed."""
-        import jax.numpy as jnp
-
-        if self._full_rng == "kernel":
-            # the kernel draws all noise itself; derive a 64-bit per-step
-            # seed (two words) from the key so fixed-key rollouts stay
-            # reproducible and step streams never collide
-            seed = jax.lax.bitcast_convert_type(
-                jax.random.bits(key, (2,), jnp.uint32), jnp.int32
-            )
-            return kernel(state, actions, seed)
-        kt, kr = jax.random.split(key)
-        t_noise = draw_noise(kt, self._t_spec, batch=self.n_envs)
-        r_noise = draw_noise(kr, self._r_spec, batch=self.n_envs)
-        return kernel(state, actions, *self._pack_noise(t_noise, r_noise))
-
-    def _full_aux(self, aux):
-        reward = aux[0]
-        term = aux[1] > 0.5
-        trunc = aux[2] > 0.5
-        info = {k: aux[3 + i] for i, k in enumerate(self._info_keys)}
-        return reward, term, trunc, info
-
-    def _full_step(self, state, actions, key):
-        """One fused kernel launch: state stays in kernel layout."""
-        st, obs, aux = self._full_invoke(self._full, state, actions, key)
-        return (st, obs, *self._full_aux(aux))
-
-    def _pallas_step(self, state, actions, t_noise, r_noise):
-        """pre (vmapped) -> fused Pallas physics (batched) -> post (vmapped)
-        -> truncation + auto-reset select (batch-level elementwise)."""
-        import jax.numpy as jnp
-
-        commands, aux = self._pre_v(state, actions, t_noise)
-        world = self._pallas(state.world, commands)
-        ns, reward, term, info = self._post_v(state, world, aux)
-        truncated = ns.steps >= self.env.max_episode_steps
-        done = jnp.logical_or(term, truncated)
-        reset_state = self._reset_state_v(r_noise)
-        out_state = jax.tree.map(
-            lambda r, n: jnp.where(done, r, n), reset_state, ns
-        )
-        return (
-            out_state,
-            self._observe_v(out_state),
-            reward,
-            term,
-            truncated,
-            info,
-        )
-
-    @property
-    def supports_step_final(self) -> bool:
-        """Whether :meth:`step_final` is available on this path."""
-        return True
+        return self._step_v(state, actions, *self._draw_step_noise(key))
 
     def step_final(self, state, actions, key):
         """Auto-resetting step that also returns the final pre-reset obs
         (gymnasium same-step autoreset convention).  Returns
         (state, obs, final_obs, reward, term, trunc, info)."""
-        if self._full is not None:
-            # the emit_final_obs kernel variant stacks the pre-reset obs
-            # under the post-reset one: (2*O, B) -> split.  (Both variants
-            # are built at construction — building involves eager jnp
-            # constant math that a scan trace would capture as tracers;
-            # each only XLA-compiles if actually called.)
-            st, obs2, aux = self._full_invoke(
-                self._full_final, state, actions, key
-            )
-            obs = obs2[: self.obs_size]
-            fobs = obs2[self.obs_size :]
-            return (st, obs, fobs, *self._full_aux(aux))
-        kt, kr = jax.random.split(key)
-        t_noise = draw_noise(kt, self._t_spec, batch=self.n_envs)
-        r_noise = draw_noise(kr, self._r_spec, batch=self.n_envs)
-        return self._step_final_v(state, actions, t_noise, r_noise)
+        return self._step_final_v(state, actions, *self._draw_step_noise(key))
 
     def step_env(self, state, actions, key):
         """Raw step without auto-reset/truncation."""
-        if self._full is not None:
-            raise NotImplementedError(
-                "step_env is not available with pallas_full: the fused "
-                "kernel steps task logic and auto-reset as one program; "
-                "use step(), or unpack_state() for structured views"
-            )
         t_noise = draw_noise(key, self._t_spec, batch=self.n_envs)
         return self._step_env_v(state, actions, t_noise)
-
-
-def _build_pallas_vss(env, n_envs: int, tile: int):
-    """Batched world-step via the fused Pallas kernel (VSS only)."""
-    import jax.numpy as jnp
-
-    from rsoccer_tpu.core.state import BallState, RobotsState, WorldState
-    from rsoccer_tpu.ops.pallas_vss import make_pallas_vss_physics
-    from rsoccer_tpu.physics.vss import HALF_AXLE
-
-    if env.league != "vss":
-        raise NotImplementedError("pallas_physics currently supports VSS only")
-    kernel = make_pallas_vss_physics(
-        env.field, env.physics_cfg, env.time_step,
-        n_robots=env.n_robots, batch=n_envs, tile=min(tile, n_envs),
-    )
-    wheel_r = env.field.rbt_wheel_radius
-
-    def step(world, commands):
-        rb = world.robots
-        rb_arr = jnp.stack([rb.x, rb.y, rb.theta, rb.v_x, rb.v_y, rb.v_theta])
-        b = world.ball
-        ball_arr = jnp.stack([b.x, b.y, b.z, b.v_x, b.v_y, b.v_z])
-        cmd_arr = jnp.stack([commands.v_wheel0, commands.v_wheel1])
-        rb2, ball2 = kernel(rb_arr, ball_arr, cmd_arr)
-        x, y, theta, vx, vy, w = (rb2[i] for i in range(6))
-        # achieved wheel speeds (same formula as the XLA step's epilogue)
-        u = vx * jnp.cos(theta) + vy * jnp.sin(theta)
-        w0 = (u - w * HALF_AXLE) / wheel_r
-        w1 = (u + w * HALF_AXLE) / wheel_r
-        v_wheel = jnp.stack(
-            [w0, w1, jnp.zeros_like(w0), jnp.zeros_like(w0)], axis=1
-        )  # (N, 4, B)
-        return WorldState(
-            ball=BallState(
-                x=ball2[0], y=ball2[1], z=ball2[2],
-                v_x=ball2[3], v_y=ball2[4], v_z=ball2[5],
-            ),
-            robots=RobotsState(
-                x=x, y=y, theta=theta, v_x=vx, v_y=vy, v_theta=w,
-                infrared=rb.infrared, v_wheel=v_wheel,
-            ),
-        )
-
-    return step
 
 
 def _reset_obs(env: Env, noise):

@@ -4,7 +4,7 @@ Drop-in equivalents of the reference's entity dataclasses (Entities/Ball.py,
 Entities/Robot.py, Entities/Frame.py): plain Python objects in the reference's
 units (meters, m/s, DEGREES, deg/s — Frame.py:8) built from a device-side
 ``WorldState``.  Used by the Gymnasium-compat wrapper and the renderer; the
-TPU hot path never touches these.
+batched hot path never touches these.
 """
 
 from __future__ import annotations

@@ -8,8 +8,8 @@ arrays so the whole step stays on-chip and vmaps over the env batch.
 Single-env leaf shapes: ball fields are scalars, robot fields are ``(N,)``
 where ``N = n_blue + n_yellow`` (blues first, then yellows — the same ordering
 as the reference's flat state vector, Entities/Frame.py:28-49).  Batched code
-maps every leaf over a trailing batch axis ("batch-last"), which puts the env
-batch in the TPU lane dimension for full vector-unit utilisation.
+maps every leaf over a trailing batch axis ("batch-last"), which makes the env
+index the contiguous axis of every per-entity array.
 
 Units: meters, m/s, radians, rad/s — radians *internally*; the reference's
 degree convention (Entities/Frame.py:8) is honoured only at the API edge

@@ -15,11 +15,11 @@ dynamics are *deterministic pure functions of pre-drawn noise*:
     observe(state)                  -> obs
 
 Randomness enters only through the declared noise blocks.  This decouples the
-PRNG from the env logic, which matters on TPU: the batched layer
-(``rsoccer_tpu.batch.vecenv``) draws each step's entire noise block with ONE
-fused generator call per kind — with whatever key implementation the caller
-provides (threefry for strict reproducibility, hardware ``rbg`` keys for
-speed) — instead of thousands of tiny per-env threefry splits.
+PRNG from the env logic: the batched layer (``rsoccer_tpu.batch.vecenv``)
+draws each step's entire noise block with ONE fused generator call per kind
+— with whatever key implementation the caller provides (threefry, or
+``rbg`` for XLA's RngBitGenerator) — instead of thousands of tiny per-env
+threefry splits.
 
 Key-based conveniences are provided on top:
 
@@ -72,7 +72,7 @@ def draw_noise(key, spec: NoiseSpec, batch: int | None = None):
     if n_u:
         # optimization_barrier: without it XLA fuses the generator into
         # every consumer, REGENERATING the full block once per consuming
-        # fusion (measured as 14 full-block passes per env step on TPU).
+        # fusion.
         # The barrier materialises the block once; consumers read slices.
         u = jax.lax.optimization_barrier(jax.random.uniform(ku, (n_u,) + tail))
         off = 0
@@ -94,8 +94,7 @@ def strongify(tree):
     Reset states built from Python scalars (``jnp.asarray(-0.1)``,
     ``jnp.full(n, jnp.pi)``) carry weak-typed leaves, while stepped states
     are strong-typed — without this, the second call of a jitted
-    rollout/step silently retraces (and on remote-compile TPUs, recompiles
-    for minutes).
+    rollout/step silently retraces and recompiles.
     """
     return jax.tree.map(lambda l: jnp.asarray(l, jnp.asarray(l).dtype), tree)
 

@@ -33,9 +33,8 @@ def pick_first(ok, *arrays):
     to index 0 when none) WITHOUT integer indexing: a one-hot masked sum.
 
     ``array[argmax(ok)]`` with a traced index becomes a per-lane gather
-    under vmap — measured at ~70us per call on TPU (cross-lane movement in
-    a kCustom fusion).  The one-hot formulation is elementwise + reduction
-    and costs ~nothing.
+    under vmap; the one-hot formulation is elementwise + reduction and
+    fuses with its neighbours.
     """
     first = ok & (jnp.cumsum(ok) == 1)  # one-hot of the first True
     any_ok = jnp.any(ok)
@@ -89,7 +88,7 @@ def place_separated(
         # slice the candidate block FIRST, scale after: each loop iteration
         # must touch only its own (2, K) slice — scaling the full block up
         # front makes every iteration's fusion re-read the whole candidate
-        # tensor (measured as ~14 full-tensor passes per step on TPU)
+        # tensor
         cx = x_lo + u[i, 0] * (x_hi - x_lo)
         cy = y_lo + u[i, 1] * (y_hi - y_lo)
         ok = _first_valid_mask(cx, cy, px, py, mask, min_dist)

@@ -198,8 +198,8 @@ class VSSEnv(Env):
     def pre_physics(self, state: VSSState, action, noise):
         """Commands from state+action+noise (reference vss_gym.py:119-142;
         OU index 0 exists but is never sampled for the agent).  Split out so
-        the batched layer can route the physics through the fused Pallas
-        kernel (ops/pallas_vss.py)."""
+        the multi-agent and self-play variants override only the command
+        conversion."""
         ou_x = ou.ou_update(state.ou_x, noise["ou"], self.time_step)
         all_actions = ou_x.at[0].set(action)
         wl, wr = self._actions_to_wheels(all_actions)

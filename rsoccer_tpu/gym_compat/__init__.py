@@ -1,7 +1,7 @@
 """Gymnasium-compatible wrapper — drop-in parity with the reference API.
 
 The reference exposes classic Gymnasium class envs (``gym.make("VSS-v0")``
-etc., rsoccer_gym/__init__.py:3-30).  This module wraps the functional TPU
+etc., rsoccer_gym/__init__.py:3-30).  This module wraps the functional
 envs in a ``gymnasium.Env`` so reference users keep their training loops:
 same ids, spaces, reset/step/render/close signatures, degree-based ``frame``
 attribute, and info dicts.
@@ -33,7 +33,7 @@ from rsoccer_tpu.core.frame import frame_from_world
 
 
 class GymnasiumEnv(gym.Env):
-    """Single-env host-side wrapper around a functional TPU env."""
+    """Single-env host-side wrapper around a functional env."""
 
     metadata = {
         "render.modes": ["human", "rgb_array"],

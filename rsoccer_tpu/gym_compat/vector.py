@@ -1,8 +1,8 @@
-"""Gymnasium VectorEnv wrapper over the TPU-batched envs.
+"""Gymnasium VectorEnv wrapper over the batched envs.
 
 The reference has no vector API at all (SURVEY §2: not even
 ``gymnasium.vector``); this gives gymnasium-ecosystem users (e.g.
-vector-env-based training loops) the batched TPU engine behind the standard
+vector-env-based training loops) the batched engine behind the standard
 ``VectorEnv`` interface: numpy in, numpy out.
 
 Auto-reset follows gymnasium's SAME_STEP convention
@@ -32,22 +32,9 @@ class VectorGymnasiumEnv(gym.vector.VectorEnv):
 
     metadata = {"autoreset_mode": gym.vector.AutoresetMode.SAME_STEP}
 
-    def __init__(
-        self,
-        env_id: str,
-        num_envs: int,
-        pallas_full: bool = False,
-        pallas_rng: str = "input",
-        **kwargs,
-    ):
-        """``pallas_full=True`` backs the wrapper with the fused full-step
-        kernels (the emit_final_obs variant supplies ``final_obs``)."""
+    def __init__(self, env_id: str, num_envs: int, **kwargs):
         self.env = rsoccer_tpu.make(env_id, **kwargs)
-        self.benv = BatchedEnv(
-            self.env, num_envs,
-            pallas_full=pallas_full, pallas_rng=pallas_rng,
-            pallas_tile=min(2048, num_envs),
-        )
+        self.benv = BatchedEnv(self.env, num_envs)
         self.num_envs = num_envs
         self.single_action_space = gym.spaces.Box(
             low=-1, high=1, shape=(self.env.action_size,), dtype=np.float32

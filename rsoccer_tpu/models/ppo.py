@@ -2,8 +2,8 @@
 
 A full training iteration — T batched env steps, GAE, and K epochs of
 minibatched clipped-surrogate updates — is ONE jitted program: no host
-round-trips, rollout storage lives in (T, ...) scan stacks on-chip, and the
-policy/value matmuls run bf16 on the MXU while the physics runs on the VPU.
+round-trips, rollout storage lives in (T, ...) scan stacks on the device, and
+the policy/value matmuls run in bf16.
 
 Scales by sharding the env batch over the mesh (data parallelism); gradients
 are averaged across shards by jit/XLA automatically when the batch axis is
@@ -52,7 +52,7 @@ class PPOConfig(NamedTuple):
     critic_warmup_updates: int = 0
     # "shuffle": classic PPO — every epoch draws a fresh permutation of all
     # T*B samples (random-row gathers over the whole flat buffer dominate
-    # the measured update time on TPU).  "time": permute only the TIME axis
+    # the measured update time).  "time": permute only the TIME axis
     # and slice minibatches as (T/num_minibatches) random steps x ALL envs —
     # contiguous reads instead of row gathers.  With thousands of
     # independent parallel envs each minibatch is still sample-diverse
@@ -186,23 +186,15 @@ class PPOTrainer:
             # static_defenders.py:142) — clip at the env boundary like SB3
             # does, keeping the unclipped sample for the log-prob
             act = jnp.clip(action.T, -1.0, 1.0)
-            if self.benv.supports_step_final:
-                ns, nobs, fobs, reward, term, trunc, info = (
-                    self.benv.step_final(env_state, act, env_step_key)
-                )
-                net_fobs = (
-                    obs_norm.normalize(fobs.T)
-                    if self.cfg.normalize_obs
-                    else fobs.T
-                )
-                # value of the pre-reset obs; only the value head survives
-                # DCE here (mean/log_std outputs are unused)
-                _, _, boot_value = self.net.apply(params, net_fobs)
-            else:
-                ns, nobs, reward, term, trunc, info = self.benv.step(
-                    env_state, act, env_step_key
-                )
-                boot_value = jnp.zeros_like(value)
+            ns, nobs, fobs, reward, term, trunc, info = self.benv.step_final(
+                env_state, act, env_step_key
+            )
+            net_fobs = (
+                obs_norm.normalize(fobs.T) if self.cfg.normalize_obs else fobs.T
+            )
+            # value of the pre-reset obs; only the value head survives
+            # DCE here (mean/log_std outputs are unused)
+            _, _, boot_value = self.net.apply(params, net_fobs)
             t = Transition(
                 obs=net_obs, action=action, logp=logp, value=value,
                 reward=reward,
@@ -230,8 +222,7 @@ class PPOTrainer:
         ``c_t = gamma * lambda * (1 - done_t)`` is a first-order linear
         recurrence, so it runs as ``lax.associative_scan`` in O(log T)
         sweeps over the whole (T, B) buffer instead of T sequential
-        micro-steps — the T-step scan's per-iteration launch overhead was a
-        measurable slice of the fused train step on TPU.
+        micro-steps, each of which costs per-iteration loop overhead.
         """
         cfg = self.cfg
         # truncated-but-not-terminated lanes bootstrap from the value of

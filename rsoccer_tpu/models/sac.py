@@ -9,14 +9,15 @@ arrays so there is no host round-trip anywhere in the loop.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, NamedTuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import optax
 
 from rsoccer_tpu.batch.vecenv import BatchedEnv
+from rsoccer_tpu.models.networks import dense, dense_init
 
 
 class SACConfig(NamedTuple):
@@ -28,8 +29,8 @@ class SACConfig(NamedTuple):
     tau: float = 0.005  # polyak rate
     lr: float = 3e-4
     compute_dtype: Any = jnp.float32  # actor/critic matmul dtype; bf16
-    # doubles MXU throughput (mirrors networks.ActorCritic).  Params and
-    # the Q/mean/log_std heads stay f32 either way.  Default f32 keeps
+    # mirrors networks.ActorCritic.  Params and the Q/mean/log_std heads
+    # stay f32 either way.  Default f32 keeps
     # existing checkpoints' eval numerics bit-stable; flip per-run via
     # train_sac_vss.py --bf16.
     actor_freeze_iters: int = 0  # keep the actor (and temperature) frozen
@@ -52,36 +53,61 @@ class SACConfig(NamedTuple):
     # measured SAC failure mode on the SSL goal tasks — docs/training.md).
 
 
-class SquashedGaussianActor(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class SquashedGaussianActor:
     action_size: int
     hidden: tuple = (256, 256)
     compute_dtype: Any = jnp.float32
 
-    @nn.compact
-    def __call__(self, obs):
-        x = obs.astype(self.compute_dtype)
-        for i, h in enumerate(self.hidden):
-            x = nn.relu(
-                nn.Dense(h, name=f"fc{i}", dtype=self.compute_dtype)(x)
-            )
-        x = x.astype(jnp.float32)
-        mean = nn.Dense(self.action_size, name="mean")(x)
-        log_std = jnp.clip(nn.Dense(self.action_size, name="log_std")(x), -5.0, 2.0)
+    def init(self, key, obs) -> dict:
+        return {"params": _mlp_init(
+            key, obs.shape[-1], self.hidden,
+            {"mean": self.action_size, "log_std": self.action_size},
+        )}
+
+    def apply(self, params, obs):
+        p = params["params"]
+        x = _relu_tower(p, obs, len(self.hidden), self.compute_dtype)
+        mean = dense(p["mean"], x)
+        log_std = jnp.clip(dense(p["log_std"], x), -5.0, 2.0)
         return mean, log_std
 
 
-class QCritic(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class QCritic:
     hidden: tuple = (256, 256)
     compute_dtype: Any = jnp.float32
 
-    @nn.compact
-    def __call__(self, obs, action):
-        x = jnp.concatenate([obs, action], axis=-1).astype(self.compute_dtype)
-        for i, h in enumerate(self.hidden):
-            x = nn.relu(
-                nn.Dense(h, name=f"fc{i}", dtype=self.compute_dtype)(x)
-            )
-        return nn.Dense(1, name="q")(x.astype(jnp.float32))[..., 0]
+    def init(self, key, obs, action) -> dict:
+        n_in = obs.shape[-1] + action.shape[-1]
+        return {"params": _mlp_init(key, n_in, self.hidden, {"q": 1})}
+
+    def apply(self, params, obs, action):
+        p = params["params"]
+        x = jnp.concatenate([obs, action], axis=-1)
+        x = _relu_tower(p, x, len(self.hidden), self.compute_dtype)
+        return dense(p["q"], x)[..., 0]
+
+
+def _mlp_init(key, n_in, hidden, heads) -> dict:
+    """Params of ``fc{i}`` hidden layers plus the named heads, all with
+    the lecun-normal kernels of :func:`networks.dense_init`."""
+    p = {}
+    for i, h in enumerate(hidden):
+        p[f"fc{i}"] = dense_init(key, f"fc{i}", n_in, h)
+        n_in = h
+    for name, n_out in heads.items():
+        p[name] = dense_init(key, name, n_in, n_out)
+    return p
+
+
+def _relu_tower(p, x, n_layers, compute_dtype):
+    """ReLU hidden layers in ``compute_dtype``; returns float32 features
+    for the float32 heads."""
+    x = x.astype(compute_dtype)
+    for i in range(n_layers):
+        x = jax.nn.relu(dense(p[f"fc{i}"], x, compute_dtype))
+    return x.astype(jnp.float32)
 
 
 def sample_squashed(key, mean, log_std):
@@ -105,8 +131,7 @@ class Buffer(NamedTuple):
     # ANY kind (term | trunc) — the next same-env slot starts a fresh
     # episode, so n-step chains stop there.  Packed into one ring so the
     # n-step chain walk costs ONE row gather instead of three scalar
-    # gathers (random scalar gathers are latency-bound on TPU and were
-    # the top ops of the SAC iteration, tools/profile_sac.py).
+    # gathers (tools/profile_sac.py).
     next_obs: jnp.ndarray  # (C, O)
     ptr: jnp.ndarray
     filled: jnp.ndarray
@@ -144,10 +169,8 @@ class Buffer(NamedTuple):
         if c % b == 0:
             # ptr starts at 0 and advances by b mod c, so when b divides c
             # the block [ptr, ptr+b) never wraps — the insert is ONE
-            # contiguous dynamic-slice DMA per array.  The equivalent
-            # row-scatter (`.at[idx].set`) lowers to a serial scatter on
-            # TPU and was the top op of the whole SAC iteration (~300 us
-            # per array at 4096 envs, tools/profile_sac.py).
+            # contiguous dynamic-slice copy per array instead of a
+            # row-scatter (`.at[idx].set`).
             upd = lambda arr, val: jax.lax.dynamic_update_slice_in_dim(
                 arr, val, self.ptr, axis=0
             )
@@ -234,8 +257,7 @@ class SACState(NamedTuple):
     # vmapped apply runs both critics in single double-width ops, and one
     # Adam/polyak chain serves both.  The q loss is separable per critic,
     # so the stacked update is mathematically identical to two separate
-    # critics — at roughly half the op count (the SAC iteration is
-    # small-op-bound on TPU, tools/profile_sac.py).
+    # critics — at roughly half the op count (tools/profile_sac.py).
     qs_target: Any
     log_alpha: jnp.ndarray
     opt_actor: optax.OptState
@@ -325,9 +347,7 @@ class SACTrainer:
         )
         # true successor obs (pre-reset on episode ends): the replay must
         # bootstrap truncated transitions from the FINAL obs of the
-        # episode, not the next episode's spawn.  Works on every path —
-        # the pallas_full kernels emit the pre-reset obs too
-        # (emit_final_obs variant, ops/pallas_*_full.py).
+        # episode, not the next episode's spawn.
         env_state, next_obs, final_obs, reward, term, trunc, info = (
             self.benv.step_final(state.env_state, action.T, k_env)
         )

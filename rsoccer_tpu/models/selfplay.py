@@ -11,8 +11,7 @@ both sides.
 The opponent's parameters (and the obs-normaliser statistics it was trained
 under) travel INSIDE the env state as an :class:`OpponentPayload`.  That
 makes an opponent swap a pure data operation between train steps — no
-retrace, no recompile — which is what makes frozen-past self-play cheap on
-a remote-compile TPU:
+retrace, no recompile — which is what makes frozen-past self-play cheap:
 
     benv = SelfPlayBatchedEnv(env, n_envs, trainer.net, init_params)
     state = trainer.init(key)
@@ -121,10 +120,6 @@ class SelfPlayBatchedEnv:
         full = jnp.concatenate([blue_actions, yellow_actions], axis=0)
         inner, obs, reward, term, trunc, info = self.benv.step(inner, full, key)
         return (inner, opp), obs, reward, term, trunc, info
-
-    @property
-    def supports_step_final(self) -> bool:
-        return self.benv.supports_step_final
 
     def step_final(self, state, blue_actions, key):
         """Like :meth:`step` but also returns the final pre-reset obs

@@ -2,9 +2,10 @@
 
 The reference has no distribution of any kind (SURVEY §2: single env <->
 single C++ sim, no comm backend).  Here scaling is pure data parallelism over
-the env batch: a 1-D mesh over all chips (ICI within a slice, DCN across
-hosts via ``jax.distributed``), with every env-state leaf sharded on its
-trailing batch axis.  The physics step is embarrassingly parallel — zero
+the env batch: a 1-D mesh over all devices (NVLink joins the GPUs of a host
+all to all, so the mesh has no topology to follow; several hosts join via
+``jax.distributed``), with every env-state leaf sharded on its trailing
+batch axis.  The physics step is embarrassingly parallel — zero
 cross-chip communication inside the rollout; collectives appear only for
 metric reduction and learner gradients (``psum`` over the mesh axis).
 """
@@ -50,7 +51,7 @@ def shard_batched_tree(tree, mesh: Mesh, batch_axis: int = -1):
 def initialize_distributed(**kwargs):
     """Multi-host bring-up: ``jax.distributed.initialize`` passthrough.
 
-    On a multi-host pod slice call this once per process before building
-    meshes; single-host usage never needs it.
+    On several hosts call this once per process (one per host, seeing that
+    host's GPUs) before building meshes; single-host usage never needs it.
     """
     jax.distributed.initialize(**kwargs)

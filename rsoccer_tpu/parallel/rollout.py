@@ -67,9 +67,8 @@ def make_shard_map_rollout(
         raise ValueError(
             f"n_envs={benv.n_envs} not divisible by mesh size {n_dev}"
         )
-    # inside shard_map each device sees only its local slice of the batch;
-    # keep the pallas mode so the full-step kernel path shards too
-    local_benv = BatchedEnv(benv.env, benv.n_envs // n_dev, **benv.mode)
+    # inside shard_map each device sees only its local slice of the batch
+    local_benv = BatchedEnv(benv.env, benv.n_envs // n_dev)
     rollout = make_rollout_fn(local_benv, n_steps, policy=policy, unroll=unroll)
 
     def batch_spec(tree):
@@ -103,8 +102,7 @@ def make_shard_map_rollout(
             ms = jax.tree.map(lambda x: jax.lax.psum(x, ENV_AXIS), ms)
             # restore a replicated key stream for the next call
             carry = carry._replace(
-                key=jax.lax.all_gather(carry.key, ENV_AXIS)[0],
-                pol_key=jax.lax.all_gather(carry.pol_key, ENV_AXIS)[0],
+                key=_first_shard(carry.key), pol_key=_first_shard(carry.pol_key)
             )
             return carry, ms
 
@@ -114,6 +112,17 @@ def make_shard_map_rollout(
         return make(carry)(carry)
 
     return rollout_sm
+
+
+def _first_shard(key):
+    """Device 0's key, replicated over the mesh axis.  Gathered as raw key
+    data: ``all_gather`` does not take typed (``jax.random.key``) keys."""
+    from rsoccer_tpu.parallel.mesh import ENV_AXIS
+
+    data = jax.lax.all_gather(jax.random.key_data(key), ENV_AXIS)[0]
+    if jax.dtypes.issubdtype(key.dtype, jax.dtypes.prng_key):
+        return jax.random.wrap_key_data(data, impl=jax.random.key_impl(key))
+    return data
 
 
 def make_sharded_rollout(

@@ -4,8 +4,8 @@ The reference has no learner at all (SURVEY §2: env framework only), and
 PPO already scales by sharding the env batch and letting the batch-mean
 losses induce the gradient collective (parallel/rollout.py,
 tools/distributed_smoke.py --impl ppo).  SAC adds one genuinely stateful
-piece — the replay buffer — and the TPU-native answer is to keep it OUT of
-the collectives entirely:
+piece — the replay buffer — and the answer here is to keep it OUT of the
+collectives entirely:
 
 - **per-shard circular rings**: the replay arrays are sharded on the
   capacity axis, so each device owns a private ring of ``C / n_dev`` slots
@@ -18,7 +18,7 @@ the collectives entirely:
   applied update the gradient of the global-batch mean loss.  Replicated
   params therefore stay bit-identical across devices — the only
   collectives in the whole iteration are 4 gradient pmeans + the metric
-  means, all riding ICI.
+  means.
 
 Because the program is a single global SPMD function over the mesh, a
 2-process ``jax.distributed`` launch runs the SAME program as a 1-process
@@ -113,7 +113,7 @@ def make_sharded_sac(benv: BatchedEnv, cfg: SACConfig, mesh: Mesh):
             raise ValueError(
                 f"{name}={val} not divisible by mesh size {n_dev}"
             )
-    local_benv = BatchedEnv(benv.env, benv.n_envs // n_dev, **benv.mode)
+    local_benv = BatchedEnv(benv.env, benv.n_envs // n_dev)
     local_cfg = cfg._replace(
         buffer_size=cfg.buffer_size // n_dev,
         batch_size=cfg.batch_size // n_dev,

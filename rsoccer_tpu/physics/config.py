@@ -3,7 +3,7 @@
 The reference delegates dynamics to the out-of-repo C++ rSim engine (ODE
 rigid-body sim, bound at Simulators/rsim.py:2); its friction/restitution/motor
 constants live in that engine's source.  This module is the *specification* of
-our TPU-native 2D dynamics: a documented, tunable coefficient set.  The
+our JAX 2D dynamics: a documented, tunable coefficient set.  The
 binding contract (command layouts, state layout, units, field params) matches
 the reference exactly; the integrator is our own design — fixed-substep
 semi-implicit Euler with impulse-based circle collisions, written to be

@@ -1,6 +1,6 @@
 """SSL omnidirectional world step: 4-omni drive, kicker, dribbler, infrared.
 
-TPU-native replacement for the dynamics the reference gets from
+JAX replacement for the dynamics the reference gets from
 ``robosim.SSL.step``.  The binding contract matches Simulators/rsim.py:128-155
 exactly: per-robot commands are either four wheel-speed targets (rad/s) or a
 local-frame velocity target, selected by the ``wheel_speed`` flag, plus

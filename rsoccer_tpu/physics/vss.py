@@ -1,6 +1,6 @@
 """VSS differential-drive world step.
 
-TPU-native replacement for the dynamics the reference gets from
+JAX replacement for the dynamics the reference gets from
 ``robosim.VSS.step`` (Simulators/rsim.py:91-102: a dense ``(n, 2)`` buffer of
 ``[v_wheel0, v_wheel1]`` targets in rad/s, blues first then yellows).
 

@@ -2,7 +2,7 @@
 
 Mirrors the reference's gymnasium registrations (rsoccer_gym/__init__.py:3-30)
 — same ids, same ``max_episode_steps``, same constructor kwargs — but returns
-TPU-native functional envs.  The gymnasium-compatible class wrappers live in
+functional JAX envs.  The gymnasium-compatible class wrappers live in
 ``rsoccer_tpu.gym_compat``.
 """
 

@@ -1,7 +1,7 @@
 """Checkpoint / resume for env and training state.
 
 The reference has no serialization at all — env state lives inside the C++
-simulator and a crash loses the episode (SURVEY §5).  In the TPU design every
+simulator and a crash loses the episode (SURVEY §5).  Here every
 piece of state is a pytree of arrays, so checkpointing is structural: save the
 leaves, restore into the same treedef.  Orbax is used when available (async,
 multi-host safe); a numpy ``.npz`` fallback keeps the API dependency-free.

@@ -3,6 +3,7 @@
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 import rsoccer_tpu
 from rsoccer_tpu.batch import rollout as R
@@ -91,7 +92,7 @@ def test_steps_counter_resets_per_env_independently():
 
 
 def test_rbg_keys_flow_through():
-    """Passing an rbg-impl key must work end to end (hardware RNG path)."""
+    """Passing an rbg-impl key must work end to end."""
     env = rsoccer_tpu.make("VSS-v0")
     benv = BatchedEnv(env, 8)
     key = jax.random.key(0, impl="rbg")  # typed key carries the impl
@@ -101,3 +102,40 @@ def test_rbg_keys_flow_through():
     roll = jax.jit(R.make_rollout_fn(benv, 5, unroll=1))
     carry, ms = roll(carry)
     assert np.isfinite(float(ms.total_reward))
+
+
+@pytest.mark.parametrize("env_id", rsoccer_tpu.registered_ids())
+def test_step_final_surfaces_the_pre_reset_obs(env_id):
+    """``step_final``'s final_obs is ``obs`` on lanes that go on and the
+    observation of the pre-reset state on lanes that end; its other outputs
+    are those of ``step``."""
+    env = rsoccer_tpu.make(env_id)
+    B = 8
+    benv = BatchedEnv(env, B)
+    state, _ = benv.reset(jax.random.PRNGKey(0))
+    # odd lanes one step from the time limit: they truncate and reset
+    state = state._replace(steps=jnp.where(
+        jnp.arange(B) % 2 == 1, env.max_episode_steps - 1, state.steps
+    ).astype(state.steps.dtype))
+    acts = jax.random.uniform(
+        jax.random.PRNGKey(1), (env.action_size, B), minval=-1, maxval=1
+    )
+    key = jax.random.PRNGKey(2)
+    _, obs, fobs, r, term, trunc, _ = jax.jit(benv.step_final)(state, acts, key)
+    # the same transition without truncation or reset: step_final draws its
+    # transition noise from the first half of the split key
+    kt, _ = jax.random.split(key)
+    _, pre_obs, *_ = jax.jit(benv.step_env)(state, acts, kt)
+    done = np.asarray(term | trunc)
+    assert done[1::2].all()
+    np.testing.assert_allclose(
+        np.asarray(fobs)[:, done], np.asarray(pre_obs)[:, done], atol=1e-6
+    )
+    np.testing.assert_allclose(
+        np.asarray(fobs)[:, ~done], np.asarray(obs)[:, ~done], atol=1e-6
+    )
+    _, obs_s, r_s, term_s, trunc_s, _ = jax.jit(benv.step)(state, acts, key)
+    np.testing.assert_allclose(np.asarray(obs), np.asarray(obs_s), atol=1e-6)
+    np.testing.assert_allclose(np.asarray(r), np.asarray(r_s), atol=1e-6)
+    np.testing.assert_array_equal(np.asarray(term), np.asarray(term_s))
+    np.testing.assert_array_equal(np.asarray(trunc), np.asarray(trunc_s))

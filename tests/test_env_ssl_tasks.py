@@ -308,12 +308,6 @@ class TestDribblingCurriculum:
             return
         raise AssertionError("no odd stage sampled in 40 seeds")
 
-    def test_full_kernel_rejects_curriculum(self, env):
-        from rsoccer_tpu.batch.vecenv import BatchedEnv
-
-        with pytest.raises(ValueError, match="curriculum"):
-            BatchedEnv(env, 64, pallas_full=True)
-
 
 class TestContestedPossession:
     @pytest.fixture(scope="class")

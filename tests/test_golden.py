@@ -2,7 +2,7 @@
 
 Replays scripted trajectories recorded by ``tests/golden/record.py`` and
 asserts the current implementation reproduces them.  Guards physics/task
-refactors (e.g. Pallas kernel rewrites) against silent behavior drift.
+refactors against silent behavior drift.
 """
 
 import os

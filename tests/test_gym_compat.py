@@ -180,33 +180,3 @@ def test_gymnasium_official_env_checker():
         env = gym.make(env_id)
         check_env(env.unwrapped, skip_render_check=True)
         env.close()
-
-
-def test_vector_env_pallas_full_final_obs(monkeypatch):
-    """The gymnasium vector wrapper over the fused kernels: SAME_STEP
-    autoreset with final_obs surfaced from the emit_final_obs variant."""
-    import numpy as np
-
-    from rsoccer_tpu.envs.vss import VSSEnv
-    from rsoccer_tpu.gym_compat.vector import VectorGymnasiumEnv
-
-    # the kernel bakes the step limit at construction — patch the class
-    monkeypatch.setattr(VSSEnv, "max_episode_steps", 3)
-    venv = VectorGymnasiumEnv("VSS-v0", 8, pallas_full=True)
-    obs, _ = venv.reset(seed=0)
-    assert obs.shape == (8, 40)
-    saw_final = False
-    for _ in range(6):
-        obs, r, te, tr, infos = venv.step(
-            np.zeros((8, 2), dtype=np.float32)
-        )
-        if "final_obs" in infos:
-            saw_final = True
-            mask = infos["_final_obs"]
-            assert mask.any()
-            # object array of per-env final obs (gymnasium convention)
-            fo = np.stack([o for o in infos["final_obs"][mask]])
-            assert fo.shape == (int(mask.sum()), 40)
-            # the surfaced final obs differs from the reset obs somewhere
-            assert not np.allclose(fo, obs[mask])
-    assert saw_final

@@ -279,47 +279,3 @@ def test_time_minibatch_mode_requires_divisibility():
     state = trainer.init(jax.random.PRNGKey(0))
     with pytest.raises(ValueError, match="divisible"):
         jax.jit(trainer.train_step)(state, jax.random.PRNGKey(1))
-
-
-def test_rollout_equivalence_pallas_full():
-    """PPOTrainer._rollout over a pallas_full BatchedEnv matches the XLA
-    path transition-for-transition (same key -> same noise stream), through
-    a TimeLimit truncation, including the truncation bootstrap values."""
-    env = rsoccer_tpu.make("VSS-v0")
-    env.max_episode_steps = 4
-    ref = BatchedEnv(env, 8)
-    ful = BatchedEnv(env, 8, pallas_full=True, pallas_tile=8)
-    cfg = PPOConfig(rollout_steps=6, normalize_obs=False)
-    tr_ref = PPOTrainer(ref, cfg)
-    tr_ful = PPOTrainer(ful, cfg)
-    s_ref = tr_ref.init(jax.random.PRNGKey(0))
-    s_ful = tr_ful.init(jax.random.PRNGKey(0))
-    np.testing.assert_allclose(
-        np.asarray(s_ref.obs), np.asarray(s_ful.obs), atol=1e-6
-    )
-    k = jax.random.PRNGKey(5)
-    _, _, _, _, t_ref = tr_ref._rollout(
-        s_ref.params, s_ref.env_state, s_ref.obs, s_ref.env_key,
-        s_ref.obs_norm, k,
-    )
-    _, _, _, _, t_ful = tr_ful._rollout(
-        s_ful.params, s_ful.env_state, s_ful.obs, s_ful.env_key,
-        s_ful.obs_norm, k,
-    )
-    assert np.asarray(t_ref.trunc).sum() >= 8, "expected truncations"
-    np.testing.assert_allclose(
-        np.asarray(t_ref.obs), np.asarray(t_ful.obs), atol=5e-5
-    )
-    np.testing.assert_allclose(
-        np.asarray(t_ref.reward), np.asarray(t_ful.reward), atol=5e-5
-    )
-    np.testing.assert_array_equal(
-        np.asarray(t_ref.term), np.asarray(t_ful.term)
-    )
-    np.testing.assert_array_equal(
-        np.asarray(t_ref.trunc), np.asarray(t_ful.trunc)
-    )
-    # boot_value = V(final obs): network output on ~5e-5-close inputs
-    np.testing.assert_allclose(
-        np.asarray(t_ref.boot_value), np.asarray(t_ful.boot_value), atol=1e-3
-    )

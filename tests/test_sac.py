@@ -169,26 +169,6 @@ def test_actor_freeze_holds_actor_while_critics_learn():
     )
 
 
-def test_sac_trains_on_pallas_full():
-    """SAC now collects through step_final on the fused-kernel path (the
-    kernels emit the pre-reset obs), so training on pallas_full is
-    unbiased and must run end-to-end."""
-    import rsoccer_tpu
-    from rsoccer_tpu.models.sac import SACConfig, SACTrainer
-
-    env = rsoccer_tpu.make("VSS-v0")
-    benv = BatchedEnv(env, 8, pallas_full=True, pallas_tile=8)
-    cfg = SACConfig(
-        buffer_size=1024, batch_size=32, warmup_steps=2,
-        env_steps_per_iter=2, grad_steps_per_iter=1,
-    )
-    trainer = SACTrainer(benv, cfg)
-    state = trainer.init(jax.random.PRNGKey(0))
-    state, metrics = jax.jit(trainer.train_step)(state, jax.random.PRNGKey(1))
-    for k, v in metrics.items():
-        assert np.isfinite(float(v)), k
-
-
 def test_nstep_vectorized_matches_loop_reference():
     """Property test: the vectorized chain walk must agree with a plain
     Python reference implementation on random ring contents, across

@@ -1,13 +1,12 @@
 """Run bench.py across all five reference envs (and optional batch sweep).
 
-Produces the STATUS.md throughput table reproducibly:
-
     python tools/bench_all.py [--envs 8192] [--out artifacts/bench_all.json]
     python tools/bench_all.py --sweep 2048,8192,32768,131072 --ids VSS-v0
 
-Each point is a separate sequential bench.py subprocess (one jax process at
-a time — required on tunneled-TPU setups) inheriting RSOCCER_BENCH_* env
-overrides; results collect into one JSON file.
+Each point is a separate bench.py subprocess inheriting RSOCCER_BENCH_* env
+overrides, run one after another: a JAX process reserves most of the GPU's
+memory, so two at once on one card would fail.  Results collect into one
+JSON file.
 """
 
 from __future__ import annotations
@@ -28,12 +27,10 @@ ALL_IDS = [
 ]
 
 
-def run_point(env_id: str, n_envs: int, mode: str = "", timeout_s: int = 1800) -> dict:
+def run_point(env_id: str, n_envs: int, timeout_s: int = 1800) -> dict:
     env = dict(os.environ)
     env["RSOCCER_BENCH_ENV_ID"] = env_id
     env["RSOCCER_BENCH_ENVS"] = str(n_envs)
-    if mode:
-        env["RSOCCER_BENCH_PALLAS"] = mode
     out = subprocess.run(
         [sys.executable, os.path.join(REPO, "bench.py")],
         env=env,
@@ -46,10 +43,8 @@ def run_point(env_id: str, n_envs: int, mode: str = "", timeout_s: int = 1800) -
     rec = json.loads(line)
     rec["env_id"] = env_id
     rec["n_envs"] = n_envs
-    if mode:
-        rec["mode"] = mode
     print(
-        f"{env_id:28s} @ {n_envs:6d} {mode or 'default':9s}: "
+        f"{env_id:28s} @ {n_envs:6d}: "
         f"{rec['value'] / 1e6:8.1f}M steps/s"
     )
     return rec
@@ -60,12 +55,6 @@ def main():
     p.add_argument("--envs", type=int, default=8192)
     p.add_argument("--ids", default=",".join(ALL_IDS))
     p.add_argument("--sweep", default="", help="comma list of batch sizes")
-    p.add_argument(
-        "--modes", default="",
-        help="comma list of RSOCCER_BENCH_PALLAS modes to sweep, e.g. "
-        "'0,full,full-krng' (0 = plain XLA, full = fused kernel with "
-        "input noise, full-krng = fused kernel with in-kernel TPU RNG)",
-    )
     p.add_argument("--out", default="artifacts/bench_all.json")
     args = p.parse_args()
 
@@ -73,8 +62,7 @@ def main():
     sizes = (
         [int(s) for s in args.sweep.split(",") if s] if args.sweep else [args.envs]
     )
-    modes = [s for s in args.modes.split(",") if s] or [""]
-    results = [run_point(i, n, m) for i in ids for n in sizes for m in modes]
+    results = [run_point(i, n) for i in ids for n in sizes]
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(results, f, indent=1)

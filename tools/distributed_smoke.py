@@ -3,9 +3,10 @@
 Runs the sharded rollout under ``jax.distributed.initialize`` with N
 processes, each owning a slice of the device mesh, and prints one JSON line
 of rollout metrics (process 0).  This is exactly the shape of a multi-host
-TPU launch — one process per host, same script on every host — exercised
-here with CPU devices so CI can run it (SURVEY §4: multi-host tests "via
-jax.distributed simulated with multi-process CPU devices").
+GPU launch — one process per host, each seeing that host's GPUs, same
+script on every host — exercised here with CPU devices so CI can run it
+(SURVEY §4: multi-host tests "via jax.distributed simulated with
+multi-process CPU devices").
 
 Single-host multi-process simulation (what tests/test_distributed.py runs):
 
@@ -15,9 +16,10 @@ Single-host multi-process simulation (what tests/test_distributed.py runs):
       python tools/distributed_smoke.py \
         --coordinator localhost:<port> --num-processes N --process-id i
 
-Real multi-host TPU launch: drop the env vars (real chips enumerate
-themselves), keep --coordinator pointing at host 0, run one process per
-host with its --process-id; see docs/distributed.md.
+Real multi-host GPU launch: drop the env vars (each process sees its host's
+GPUs), keep --coordinator pointing at host 0 (host:port), run one process
+per host with --num-processes set to the host count and its --process-id;
+see docs/distributed.md.
 """
 
 import argparse

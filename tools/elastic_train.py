@@ -1,4 +1,4 @@
-"""Elastic training: crash-and-resume demonstration for the on-TPU learner.
+"""Elastic training: crash-and-resume demonstration for the on-device learner.
 
 The reference cannot recover from anything — env state lives inside a C++
 simulator and a crash loses the episode (SURVEY §5).  Here the ENTIRE

@@ -1,23 +1,44 @@
-"""Profile the batched env step on the current device.
+"""Profile the batched env rollout on the GPU.
 
-Captures a jax.profiler trace of the rollout and prints a rough on-device
-op-time breakdown parsed from the trace (no TensorBoard needed).
+Captures a jax.profiler trace of the random-policy rollout that bench.py
+times and prints what the device did per env step: device time, kernel
+count, idle share (gaps between kernels) and the costliest kernels.
 
-    python tools/profile_step.py [--envs 8192] [--steps 100]
+    python tools/profile_step.py [--env-id VSS-v0] [--envs 8192] [--steps 100]
 """
 
 import argparse
-import glob
-import gzip
-import json
 import os
 import sys
-import time
-from collections import defaultdict
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
+
+import bench
+from rsoccer_tpu.utils.cache import enable_persistent_cache
+
+
+def profile_rollout(env_id, n_envs, n_steps, out, calls=3):
+    """Trace ``calls`` warm rollout calls; returns the device_activity
+    summary with per-step figures added."""
+    from rsoccer_tpu.batch import rollout as R
+    from rsoccer_tpu.utils.profiling import device_activity, load_profile, trace
+
+    benv, roll = bench.build(env_id, n_envs, n_steps)
+    carry = R.init_carry(benv, jax.random.key(0, impl=bench.RNG_IMPL))
+    for _ in range(2):  # compile, then the retrace-free second call
+        carry, ms = roll(carry)
+        jax.block_until_ready(ms)
+    with trace(out):
+        for _ in range(calls):
+            carry, ms = roll(carry)
+        jax.block_until_ready((carry, ms))
+    act = device_activity(load_profile(out))
+    steps = calls * n_steps
+    act["device_us_per_step"] = act["busy_ns"] / steps / 1e3
+    act["kernels_per_step"] = act["n_kernels"] / steps
+    return act
 
 
 def main():
@@ -25,59 +46,19 @@ def main():
     p.add_argument("--envs", type=int, default=8192)
     p.add_argument("--steps", type=int, default=100)
     p.add_argument("--env-id", default="VSS-v0")
-    p.add_argument("--out", default="/tmp/rsoccer_trace")
-    p.add_argument(
-        "--pallas", default="0", choices=["0", "1", "full", "full-krng"],
-        help="0: XLA path, 1: pallas physics kernel, full: full-step kernel, "
-        "full-krng: full-step kernel with in-kernel hardware RNG (TPU only)",
-    )
+    p.add_argument("--out", default="traces/step")
     args = p.parse_args()
+    enable_persistent_cache()
 
-    import rsoccer_tpu
-    from rsoccer_tpu.batch import rollout as R
-    from rsoccer_tpu.batch.vecenv import BatchedEnv
-
-    env = rsoccer_tpu.make(args.env_id)
-    benv = BatchedEnv(
-        env, args.envs,
-        pallas_physics=args.pallas == "1",
-        pallas_full=args.pallas.startswith("full"),
-        pallas_rng="kernel" if args.pallas == "full-krng" else "input",
+    act = profile_rollout(args.env_id, args.envs, args.steps, args.out)
+    print(
+        f"{args.env_id} @ {args.envs} envs: "
+        f"{act['device_us_per_step']:.2f} us device time per env step, "
+        f"{act['kernels_per_step']:.2f} kernels per step, "
+        f"idle share {act['idle_share']:.4f}"
     )
-    roll = jax.jit(R.make_rollout_fn(benv, args.steps, unroll=1))
-    carry = R.init_carry(benv, jax.random.PRNGKey(0))
-    # two warmups: the first call's outputs can differ in weak-typing from
-    # init_carry's arrays, making call 2 a retrace — stabilise before tracing
-    carry, ms = roll(carry)
-    float(ms.total_reward)  # true sync (see bench.py)
-    carry, ms = roll(carry)
-    float(ms.total_reward)
-
-    jax.profiler.start_trace(args.out)
-    carry, ms = roll(carry)
-    float(ms.total_reward)
-    jax.profiler.stop_trace()
-
-    # parse the trace: sum durations by event name on device lines
-    paths = glob.glob(os.path.join(args.out, "**", "*.trace.json.gz"), recursive=True)
-    if not paths:
-        print("no trace written", file=sys.stderr)
-        return
-    latest = max(paths, key=os.path.getmtime)
-    with gzip.open(latest, "rt") as f:
-        trace = json.load(f)
-    by_name = defaultdict(float)
-    total = 0.0
-    for ev in trace.get("traceEvents", []):
-        if ev.get("ph") == "X" and "dur" in ev:
-            name = ev.get("name", "?")
-            pid_name = ev.get("pid")
-            by_name[name] += ev["dur"]
-            total += ev["dur"]
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:30]
-    print(f"trace: {latest}")
-    for name, dur in top:
-        print(f"{dur/1e3:10.2f} ms  {name[:110]}")
+    for name, ns, count in act["top"]:
+        print(f"{ns / 1e6:10.3f} ms  x{count:6d}  {name[:100]}")
 
 
 if __name__ == "__main__":

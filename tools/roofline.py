@@ -1,40 +1,67 @@
 """Roofline / MFU accounting for one jitted train step (PPO or SAC).
 
-Captures a device trace of the chained train step and aggregates the
-per-op metadata XLA attaches to every event — ``hlo_category``,
-``model_flops``, ``bytes_accessed``, ``device_duration_ps`` — into:
+Captures a device trace of the chained train step and combines the GPU's
+busy time from the trace (utils/profiling.device_activity) with XLA's cost
+analysis of the compiled step (floating-point operations, bytes accessed):
 
-- device time per HLO op class (convolution/matmul, loop fusion, copy, ...)
-- achieved model FLOP/s vs the chip's peak -> MFU %
-- achieved HBM bytes/s vs peak bandwidth -> BW residency %
-- the top ops by device time, with their HLO long names
+- device time per iteration, idle share and kernel count
+- achieved FLOP/s vs the card's peak at the compute dtype
+- achieved bytes/s vs peak device-memory bandwidth
+- the top kernels by device time
 
-This answers "how far is the update phase from the MXU roofline, and what
+This answers "how far is the update phase from the roofline, and what
 bound sets the ceiling" with measured numbers instead of guesses.
 
     python tools/roofline.py --learner ppo --envs 4096 --chain 50 \
-        --pallas-full --pallas-rng kernel --num-epochs 2 \
-        --minibatch-mode time --rollout-unroll 4
-    python tools/roofline.py --learner sac --envs 512 --chain 200
+        --num-epochs 2 --minibatch-mode time --rollout-unroll 4
+    python tools/roofline.py --learner sac --envs 512 --chain 200 --dtype tf32
 
-Peak numbers default to TPU v5e (bf16 197 TFLOP/s, f32 ~49 TFLOP/s via
-MXU, HBM 819 GB/s); override with --peak-tflops / --peak-gbs for other
-chips.
+Peaks come from :data:`PEAKS`, keyed by the device's ``device_kind``; a
+device that is not in the table is refused unless both --peak-tflops and
+--peak-gbs are given.
 """
 
 import argparse
-import glob
-import gzip
 import json
 import os
 import sys
-import time
-from collections import defaultdict
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
-import jax.numpy as jnp
+
+# Published dense peaks (no sparsity) at the full power limit, keyed by
+# jax's device_kind: TFLOP/s per compute dtype, and device-memory GB/s.
+# Source: NVIDIA H100 Tensor Core GPU data sheet (SXM5, PCIe, NVL columns).
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": {  # SXM5
+        "tflops": {"bf16": 989.4, "tf32": 494.7, "f32": 66.9}, "gbs": 3350.0,
+    },
+    "NVIDIA H100 PCIe": {
+        "tflops": {"bf16": 756.0, "tf32": 378.0, "f32": 51.2}, "gbs": 2000.0,
+    },
+    "NVIDIA H100 NVL": {
+        "tflops": {"bf16": 835.0, "tf32": 417.5, "f32": 60.0}, "gbs": 3900.0,
+    },
+}
+
+
+def resolve_peaks(device_kind, dtype, peak_tflops=None, peak_gbs=None):
+    """(TFLOP/s, GB/s) for ``device_kind`` at compute ``dtype``; explicit
+    values win.  Raises ValueError for a device the table does not know
+    when either explicit value is missing — never assumes a peak."""
+    if peak_tflops is not None and peak_gbs is not None:
+        return peak_tflops, peak_gbs
+    if device_kind not in PEAKS:
+        raise ValueError(
+            f"no published peaks for device_kind {device_kind!r}; pass "
+            "--peak-tflops and --peak-gbs"
+        )
+    row = PEAKS[device_kind]
+    return (
+        peak_tflops if peak_tflops is not None else row["tflops"][dtype],
+        peak_gbs if peak_gbs is not None else row["gbs"],
+    )
 
 
 def build_step(args):
@@ -42,10 +69,7 @@ def build_step(args):
     from rsoccer_tpu.batch.vecenv import BatchedEnv
 
     env = rsoccer_tpu.make(args.env_id)
-    benv = BatchedEnv(
-        env, args.envs,
-        pallas_full=args.pallas_full, pallas_rng=args.pallas_rng,
-    )
+    benv = BatchedEnv(env, args.envs)
     if args.learner == "ppo":
         from rsoccer_tpu.models.ppo import PPOConfig, PPOTrainer
 
@@ -96,17 +120,23 @@ def main():
     p.add_argument("--rollout-unroll", type=int, default=4)
     p.add_argument("--batch-size", type=int, default=512)  # sac
     p.add_argument("--n-step", type=int, default=8)  # sac
-    p.add_argument("--pallas-full", action="store_true")
-    p.add_argument("--pallas-rng", default="input", choices=["input", "kernel"])
-    p.add_argument("--peak-tflops", type=float, default=197.0,
-                   help="chip peak dense TFLOP/s at the compute dtype "
-                   "(v5e bf16: 197; v5e f32 via MXU: ~49)")
-    p.add_argument("--peak-gbs", type=float, default=819.0,
-                   help="chip peak HBM GB/s (v5e: 819)")
+    p.add_argument("--dtype", default="bf16", choices=["bf16", "tf32", "f32"],
+                   help="compute dtype whose peak the MFU is taken against")
+    p.add_argument("--peak-tflops", type=float, default=None,
+                   help="override the table's dense TFLOP/s")
+    p.add_argument("--peak-gbs", type=float, default=None,
+                   help="override the table's device-memory GB/s")
     p.add_argument("--top", type=int, default=15)
-    p.add_argument("--out", default="/tmp/rsoccer_roofline_trace")
+    p.add_argument("--out", default="traces/roofline")
     p.add_argument("--json", default="", help="also write the summary here")
     args = p.parse_args()
+    try:
+        args.peak_tflops, args.peak_gbs = resolve_peaks(
+            jax.devices()[0].device_kind, args.dtype,
+            args.peak_tflops, args.peak_gbs,
+        )
+    except ValueError as e:
+        p.error(str(e))
 
     from rsoccer_tpu.utils.cache import enable_persistent_cache
 
@@ -118,80 +148,41 @@ def main():
     state, ms = step(state, jax.random.PRNGKey(2))
     jax.block_until_ready(state)
 
-    jax.profiler.start_trace(args.out)
-    state, ms = step(state, jax.random.PRNGKey(99))
-    jax.block_until_ready(state)
-    jax.profiler.stop_trace()
+    from rsoccer_tpu.utils.profiling import device_activity, load_profile, trace
 
-    paths = glob.glob(
-        os.path.join(args.out, "**", "*.trace.json.gz"), recursive=True
-    )
-    latest = max(paths, key=os.path.getmtime)
-    with gzip.open(latest, "rt") as f:
-        trace = json.load(f)
+    # XLA's own count of the step's floating-point operations and bytes
+    cost = step.lower(state, jax.random.PRNGKey(99)).compile().cost_analysis()
+    if isinstance(cost, list):  # one entry per device on older jax
+        cost = cost[0]
+    flops = float(cost.get("flops", 0.0))
+    bytes_ = float(cost.get("bytes accessed", 0.0))
+    with trace(args.out):
+        state, ms = step(state, jax.random.PRNGKey(99))
+        jax.block_until_ready(state)
+    act = device_activity(load_profile(args.out), top=args.top)
 
-    # device events are the ones carrying per-op HLO metadata; container
-    # ops (while/conditional/call) span their children and would double
-    # count, so only leaf ops aggregate
-    _CONTAINERS = {"while", "conditional", "call"}
-    evs = [
-        e for e in trace.get("traceEvents", [])
-        if e.get("ph") == "X" and isinstance(e.get("args"), dict)
-        and "hlo_category" in e["args"]
-        and e["args"]["hlo_category"] not in _CONTAINERS
-    ]
-    total_dur = 0.0
-    by_cat = defaultdict(lambda: [0.0, 0.0, 0.0])  # dur_us, flops, bytes
-    by_op = defaultdict(lambda: [0.0, 0.0, 0.0, ""])
-    for e in evs:
-        a = e["args"]
-        dur = float(a.get("device_duration_ps", 0)) / 1e6  # ps -> us
-        fl = float(a.get("model_flops", 0) or 0)
-        byt = float(a.get("raw_bytes_accessed", a.get("bytes_accessed", 0)) or 0)
-        total_dur += dur
-        cat = a["hlo_category"]
-        by_cat[cat][0] += dur
-        by_cat[cat][1] += fl
-        by_cat[cat][2] += byt
-        o = by_op[e["name"]]
-        o[0] += dur
-        o[1] += fl
-        o[2] += byt
-        o[3] = a.get("long_name", "")[:160]
-
-    total_s = total_dur / 1e6
-    flops = sum(v[1] for v in by_cat.values())
-    bytes_ = sum(v[2] for v in by_cat.values())
+    busy_s = act["busy_ns"] / 1e9
     iters = args.chain
+    tflops = flops / busy_s / 1e12
+    gbs = bytes_ / busy_s / 1e9
     print(
-        f"device busy: {total_dur/1e3:.2f} ms for {iters} iters "
-        f"({total_dur/iters:.0f} us/iter; "
-        f"{steps_per_iter*iters/total_s/1e6:.1f}M env-steps/s device rate)"
+        f"device busy: {busy_s * 1e3:.2f} ms for {iters} iters "
+        f"({busy_s / iters * 1e6:.0f} us/iter; "
+        f"{steps_per_iter * iters / busy_s / 1e6:.1f}M env-steps/s device "
+        f"rate; idle share {act['idle_share']:.3f}; {act['n_kernels']} kernels)"
     )
     print(
-        f"model FLOPs: {flops/1e9:.2f} GFLOP -> "
-        f"{flops/total_s/1e12:.2f} TFLOP/s achieved = "
-        f"{100*flops/total_s/1e12/args.peak_tflops:.1f}% MFU "
-        f"(peak {args.peak_tflops:.0f} TF/s)"
+        f"XLA cost analysis: {flops / 1e9:.2f} GFLOP -> {tflops:.2f} TFLOP/s "
+        f"= {100 * tflops / args.peak_tflops:.1f}% of {args.peak_tflops:.0f} "
+        f"TFLOP/s ({args.dtype} peak)"
     )
     print(
-        f"HBM traffic: {bytes_/1e9:.2f} GB -> "
-        f"{bytes_/total_s/1e9:.0f} GB/s = "
-        f"{100*bytes_/total_s/1e9/args.peak_gbs:.1f}% of {args.peak_gbs:.0f} GB/s"
+        f"bytes accessed: {bytes_ / 1e9:.2f} GB -> {gbs:.0f} GB/s = "
+        f"{100 * gbs / args.peak_gbs:.1f}% of {args.peak_gbs:.0f} GB/s"
     )
-    print("\nby HLO category:")
-    print(f"{'category':28s} {'ms':>9s} {'%time':>6s} {'GFLOP':>9s} {'GB':>8s}")
-    rows = sorted(by_cat.items(), key=lambda kv: -kv[1][0])
-    for cat, (dur, fl, byt) in rows:
-        print(
-            f"{cat:28s} {dur/1e3:9.2f} {100*dur/total_dur:6.1f} "
-            f"{fl/1e9:9.2f} {byt/1e9:8.2f}"
-        )
-    print(f"\ntop {args.top} ops by device time:")
-    for name, (dur, fl, byt, ln) in sorted(
-        by_op.items(), key=lambda kv: -kv[1][0]
-    )[: args.top]:
-        print(f"{dur/1e3:9.2f} ms  {name:22s} {ln[:120]}")
+    print(f"\ntop {args.top} kernels by device time:")
+    for name, ns, count in act["top"]:
+        print(f"{ns / 1e6:9.2f} ms  x{count:6d}  {name[:110]}")
 
     if args.json:
         with open(args.json, "w") as f:
@@ -200,16 +191,14 @@ def main():
                     "learner": args.learner,
                     "envs": args.envs,
                     "chain": args.chain,
-                    "us_per_iter": total_dur / iters,
-                    "env_steps_per_s": steps_per_iter * iters / total_s,
-                    "achieved_tflops": flops / total_s / 1e12,
-                    "mfu_pct": 100 * flops / total_s / 1e12 / args.peak_tflops,
-                    "achieved_gbs": bytes_ / total_s / 1e9,
-                    "bw_pct": 100 * bytes_ / total_s / 1e9 / args.peak_gbs,
-                    "by_category": {
-                        c: {"ms": v[0] / 1e3, "gflop": v[1] / 1e9, "gb": v[2] / 1e9}
-                        for c, v in by_cat.items()
-                    },
+                    "device_kind": jax.devices()[0].device_kind,
+                    "us_per_iter": busy_s / iters * 1e6,
+                    "env_steps_per_s": steps_per_iter * iters / busy_s,
+                    "idle_share": act["idle_share"],
+                    "achieved_tflops": tflops,
+                    "flops_pct_of_peak": 100 * tflops / args.peak_tflops,
+                    "achieved_gbs": gbs,
+                    "bw_pct_of_peak": 100 * gbs / args.peak_gbs,
                 },
                 f, indent=1,
             )

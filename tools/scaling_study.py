@@ -2,22 +2,19 @@
 
     python tools/scaling_study.py [--env-id VSS-v0] [--sizes 2048,8192,32768]
 
-Prints one line per batch size (double-warmup + long measurement window —
-see bench.py for why both matter on remote-compile TPU setups).
+Prints one line per batch size, timed as bench.py times its one point.
 """
 
 import argparse
 import os
 import sys
-import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache")
-jax.config.update("jax_compilation_cache_dir", os.environ["JAX_COMPILATION_CACHE_DIR"])
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+import bench
+from rsoccer_tpu.utils.cache import enable_persistent_cache
 
 
 def main():
@@ -25,35 +22,19 @@ def main():
     p.add_argument("--env-id", default="VSS-v0")
     p.add_argument("--sizes", default="2048,8192,32768,131072")
     p.add_argument("--steps", type=int, default=100)
-    p.add_argument("--iters", type=int, default=0, help="0 = auto (TPU-tuned)")
-    p.add_argument("--rng-impl", default="rbg")
+    p.add_argument("--rng-impl", default=bench.RNG_IMPL)
     args = p.parse_args()
+    enable_persistent_cache()
 
-    import rsoccer_tpu
     from rsoccer_tpu.batch import rollout as R
-    from rsoccer_tpu.batch.vecenv import BatchedEnv
 
-    env = rsoccer_tpu.make(args.env_id)
     for b in (int(s) for s in args.sizes.split(",")):
-        benv = BatchedEnv(env, b)
-        roll = jax.jit(
-            R.make_rollout_fn(benv, args.steps, unroll=4), donate_argnums=0
-        )
+        benv, roll = bench.build(args.env_id, b, args.steps)
         carry = R.init_carry(benv, jax.random.key(0, impl=args.rng_impl))
-        carry, ms = roll(carry)
-        float(ms.total_reward)
-        carry, ms = roll(carry)
-        float(ms.total_reward)
-        iters = args.iters or min(2000, max(4, int(2e9 / (args.steps * b) / 8)))
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            carry, ms = roll(carry)
-        float(ms.total_reward)
-        dt = time.perf_counter() - t0
-        sps = args.steps * iters * b / dt
+        sec, _, _ = bench.time_rollout(roll, carry)
         print(
-            f"B={b:7d}: {sps/1e6:8.1f}M env-steps/s "
-            f"({dt/(args.steps*iters)*1e6:7.1f} us/step-batch)",
+            f"B={b:7d}: {args.steps * b / sec / 1e6:8.1f}M env-steps/s "
+            f"({sec / args.steps * 1e6:7.1f} us/step-batch)",
             flush=True,
         )
 
